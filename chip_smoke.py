@@ -19,7 +19,19 @@ main path (YOLOv3 folder detection through ``DetectorV3``) at full width:
    batch 16 (folded BN, bf16, fused top-512 decode, confidence 0.6, dense
    benchmark weights); the kernel's launch count over that run, its
    survivors against the plain version on one batch's candidates, and the
-   device program's time per batch.
+   device program's time per batch;
+4. int8 kernel phase: the w8a8 tap-matmul conv kernel against its plain
+   version in each configuration the int8 yolov3 forward runs at 416x416,
+   batch 16 (bf16 in and out; fp32 out for two; inputs on the rounding
+   tie, all-zero blocks), bit for bit; per configuration the kernel's and
+   the plain version's times, the bound, and a bf16 cuDNN conv of the same
+   shape for context;
+5. int8 serving phase: ``DetectorV3(quantize="w8a8_pallas")`` over the
+   same folder and weights; the kernel's launches per batch, the program's
+   time per batch, the kernel's share of the device time, the warm folder
+   time; one batch's heads against the same program with the plain conv
+   (bit for bit) and against the fp32 folded forward with TF32 off (the
+   JAX package's full-yolov3 drift gates).
 
 Prints each number on its own line, then one JSON line of the kernels,
 then the card's name and power limit, then as the last line
@@ -42,6 +54,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12       # fp32 outside the tensor cores
+H100_INT8_OPS = 1979e12      # dense int8 tensor cores, NVIDIA data sheet
 NMS_FLOPS_PER_PAIR = 14      # IoU of one same-class pair and its compare
 NMS_FLOPS_PER_BOX = 5        # one box area
 
@@ -182,12 +195,18 @@ def profile_program(fn, iters: int = 5) -> dict:
         if evt.device_type == DeviceType.CUDA \
                 and evt.self_device_time_total > 0:
             kernels[evt.key] = evt.self_device_time_total / iters / 1e3
-    groups = {"conv": ("conv", "xmma", "gemm", "cutlass", "sm90", "cudnn"),
-              "nms_suppress": ("nms_suppress",), "sort": ("sort", "radix")}
+    # each kernel counts in the first group that names it
+    groups = {"conv_int8": ("conv_int8", "chunk_absmax"),
+              "nms_suppress": ("nms_suppress",), "sort": ("sort", "radix"),
+              "conv": ("conv", "xmma", "gemm", "cutlass", "sm90", "cudnn")}
     out = {"device_ms": sum(kernels.values())}
-    for g, keys in groups.items():
-        out[f"{g}_ms"] = sum(v for k, v in kernels.items()
-                             if any(s in k.lower() for s in keys))
+    for g in groups:
+        out[f"{g}_ms"] = 0.0
+    for k, v in kernels.items():
+        g = next((g for g, keys in groups.items()
+                  if any(s in k.lower() for s in keys)), None)
+        if g is not None:
+            out[f"{g}_ms"] += v
     out["other_ms"] = out["device_ms"] - sum(out[f"{g}_ms"] for g in groups)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     out["top"] = [[k[:80], v] for k, v in top]
@@ -355,6 +374,252 @@ def serving_phase(device, workdir: str, n_images: int = 64,
     return out
 
 
+def int8_plan(forward, params, x) -> list:
+    """The tap-matmul conv calls of one int8 forward, in order: per call
+    ``(layout, k, C_in, C_out, act, skip?)``."""
+    import torch
+    from realtimeobjectdetection_tpu_torch import model_int8
+    calls, kernel = [], model_int8.conv_flat_int8
+
+    def record(x_flat, w, s_w, b, lay, k=3, act="leaky", skip=None,
+               out_dtype=None):
+        calls.append((lay, k, w.shape[2], w.shape[1], act,
+                      skip is not None))
+        return kernel(x_flat, w, s_w, b, lay, k=k, act=act, skip=skip,
+                      out_dtype=out_dtype)
+
+    model_int8.conv_flat_int8 = record
+    try:
+        with torch.inference_mode():
+            forward(params, x)
+    finally:
+        model_int8.conv_flat_int8 = kernel
+    return calls
+
+
+def int8_bound_ms(lay, k, cin, cout, skip, in_bytes, out_bytes):
+    """Least time for one tap-matmul conv on this card: the int8 products
+    of the content rows, 2*B*H*W*k*k*C_in*C_out operations, at the dense
+    int8 tensor rate, against the bytes the function needs at the memory
+    rate: the input rows that reach an output (the content blocks, plus
+    for k=3 the halo of gr rows that each end takes from a guard block),
+    the weights, scales and bias, the skip at the content rows (elsewhere
+    the output is 0) read once, and all R output rows written once.
+    Returns ``(ms, "bytes" | "operations")``."""
+    content = lay.b * lay.h * lay.w
+    ops = 2 * content * k * k * cin * cout
+    x_rows = (lay.nb - 2) * lay.tm + (2 * lay.gr if k == 3 else 0)
+    nbytes = (x_rows * cin * in_bytes + k * k * cin * cout + 8 * cout
+              + (content * cout * in_bytes if skip else 0)
+              + lay.rows * cout * out_bytes)
+    bytes_s, ops_s = nbytes / H100_BYTES_PER_S, ops / H100_INT8_OPS
+    return 1e3 * max(bytes_s, ops_s), \
+        "bytes" if bytes_s >= ops_s else "operations"
+
+
+def int8_inputs(lay, k, cin, cout, skip, seed, device, kind="random"):
+    """Seeded inputs of one conv at ``lay``: bf16 activations in the flat
+    layout, packed int8 weights, scales, bias and a bf16 skip.  ``kind``
+    "halves" puts every scaled value on a rounding tie (amax 127, values
+    n + 0.5); "zero_blocks" zeroes the first two images, so whole row
+    blocks and their halos hold only zeros."""
+    import torch
+    from realtimeobjectdetection_tpu_torch.ops.conv_int8 import (
+        pack_conv_int8, to_flat)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (lay.b, lay.h, lay.w, cin)
+    if kind == "halves":
+        x = torch.randint(-127, 127, shape, generator=g) + 0.5
+        x[..., 0] = 127.0
+    else:
+        x = torch.randn(shape, generator=g) * 2.0
+        if kind == "zero_blocks":
+            x[:2] = 0.0
+    x_flat = to_flat(x.to(device, torch.bfloat16), lay)
+    w = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                      dtype=torch.int8)
+    s_w = (torch.rand(cout, generator=g) + 0.5) / 127 / (k * k * cin) ** 0.5
+    bias = torch.randn(cout, generator=g) * 0.5
+    sk = None
+    if skip:
+        sk = to_flat(torch.randn((lay.b, lay.h, lay.w, cout), generator=g)
+                     .to(device, torch.bfloat16), lay)
+    return (x_flat, pack_conv_int8(w).to(device), s_w.to(device),
+            bias.to(device), sk)
+
+
+def int8_kernel_phase(device, plan) -> list:
+    """K2 against its plain version in each configuration of ``plan``,
+    bf16 in and out, with its time, the plain version's, the bound and a
+    bf16 cuDNN conv of the same shape (context: not the same function);
+    then fp32 out for two configurations and the edge cases."""
+    import torch
+    import torch.nn.functional as F
+    from realtimeobjectdetection_tpu_torch.ops.conv_int8 import \
+        conv_flat_int8_plain
+    from realtimeobjectdetection_tpu_torch.ops.cuda.conv_int8 import \
+        conv_flat_int8
+
+    configs = sorted(set(plan), key=lambda c: (-c[0].h, c[1], c[2], c[3],
+                                               c[4], c[5]))
+    cases = [(c, torch.bfloat16, "random", True) for c in configs]
+    fp32 = [c for c in configs if c[1] == 3 and c[5]][:1] \
+        + [c for c in configs if c[3] == 255][:1]
+    cases += [(c, torch.float32, "random", False) for c in fp32]
+    # edge cases at the two largest resolutions, where blocks are many
+    res = sorted({c[0].h for c in configs}, reverse=True)
+    edge = [c for c in configs if c[0].h == res[0]][:2] \
+        + [c for c in configs if c[0].h == res[1] and c[1] == 3][:1]
+    cases += [(c, torch.bfloat16, kind, False) for c in edge
+              for kind in ("halves", "zero_blocks")]
+    rows = []
+    for n, ((lay, k, cin, cout, act, skip), out_dtype, kind, timed) \
+            in enumerate(cases):
+        x_flat, w, s_w, bias, sk = int8_inputs(lay, k, cin, cout, skip, n,
+                                               device, kind)
+        args = (x_flat, w, s_w, bias, lay)
+        kw = dict(k=k, act=act, skip=sk, out_dtype=out_dtype)
+        got = conv_flat_int8(*args, **kw)
+        want = conv_flat_int8_plain(*args, **kw)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        row = {"h": lay.h, "tm": lay.tm, "nb": lay.nb, "k": k, "cin": cin,
+               "cout": cout, "act": act, "skip": skip, "kind": kind,
+               "out": str(out_dtype).replace("torch.", ""),
+               "mismatches": int((got.float() != want.float()).sum()),
+               "max_abs_err": float(diff.max()),
+               "finite": bool(torch.isfinite(got.float()).all())}
+        if row["mismatches"] or not row["finite"]:
+            raise AssertionError(f"conv_flat_int8 against plain: {row}")
+        if timed:
+            row["ms"] = cuda_ms(lambda: conv_flat_int8(*args, **kw))
+            row["plain_ms"] = cuda_ms(lambda: conv_flat_int8_plain(
+                *args, **kw), iters=3, warmup=1)
+            xc = torch.randn((lay.b, cin, lay.h, lay.w), device=device,
+                             dtype=torch.bfloat16).to(
+                memory_format=torch.channels_last)
+            wc = torch.randn((cout, cin, k, k), device=device,
+                             dtype=torch.bfloat16).to(
+                memory_format=torch.channels_last)
+            row["cudnn_bf16_ms"] = cuda_ms(lambda: F.conv2d(
+                xc, wc, padding=(k - 1) // 2))
+            row["bound_ms"], row["bound_by"] = int8_bound_ms(
+                lay, k, cin, cout, skip, 2, 2)
+            row["calls_per_forward"] = plan.count(
+                (lay, k, cin, cout, act, skip))
+        rows.append(row)
+    return rows
+
+
+def int8_serving_phase(device, workdir: str, n_images: int = 64,
+                       batch: int = 16, model: str = "yolov3"):
+    """``DetectorV3(quantize="w8a8_pallas")`` over the serving folder; the
+    conv plan of one forward, K2's launches, times and drift."""
+    import torch
+    from realtimeobjectdetection_tpu_torch import model_int8
+    from realtimeobjectdetection_tpu_torch.model import (fold_batchnorm,
+                                                         make_forward)
+    from realtimeobjectdetection_tpu_torch.models import get_spec
+    from realtimeobjectdetection_tpu_torch.ops.conv_int8 import \
+        conv_flat_int8_plain
+    from realtimeobjectdetection_tpu_torch.ops.cuda.conv_int8 import \
+        conv_flat_int8
+    from realtimeobjectdetection_tpu_torch.ops.decode import decode_heads
+    from realtimeobjectdetection_tpu_torch.ops.letterbox import \
+        prep_image_host_u8
+    from realtimeobjectdetection_tpu_torch.pipeline.detector import DetectorV3
+    from realtimeobjectdetection_tpu_torch.weights import load_darknet_weights
+    import cv2
+
+    spec = get_spec(model)
+    wpath = os.path.join(workdir, f"{model}_bench.weights")
+    imgs = os.path.join(workdir, "images")
+    det = DetectorV3(imgs, os.path.join(workdir, "det_int8"), model, wpath,
+                     resolution=416, confidence=0.6, nms_thresh=0.5,
+                     batch_size=batch, bn_mode="fold",
+                     quantize="w8a8_pallas", top_k=512, fused_decode=True,
+                     host_prep="cv2", device=device)
+    t0 = time.perf_counter()
+    det(verbose=False)
+    torch.cuda.synchronize()
+    first_wall_s = time.perf_counter() - t0
+
+    conv_flat_int8.launches = 0
+    t0 = time.perf_counter()
+    metrics = det(verbose=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = conv_flat_int8.launches
+    n_batches = -(-n_images // batch)
+    if len(metrics) != n_images:
+        raise AssertionError(f"int8 serving: {len(metrics)} of {n_images} "
+                             f"images")
+    n_rows = sum(len(r) for r in metrics.values() if r != 0)
+
+    names = sorted(os.listdir(imgs))[:batch]
+    x = torch.from_numpy(np.concatenate(
+        [prep_image_host_u8(cv2.imread(os.path.join(imgs, n)), 416)
+         for n in names])).to(device)
+    xf = x.float() / 255.0
+    plan = int8_plan(det._forward, det.params, xf)
+    if launches != len(plan) * n_batches or len(plan) != 67:
+        raise AssertionError(f"int8 serving: {launches} kernel launches "
+                             f"over {n_batches} batches, {len(plan)} convs "
+                             f"in a forward (67 expected)")
+
+    with torch.inference_mode():
+        heads = det._forward(det.params, xf)
+        model_int8.conv_flat_int8 = conv_flat_int8_plain
+        try:
+            heads_plain = det._forward(det.params, xf)
+        finally:
+            model_int8.conv_flat_int8 = conv_flat_int8
+        mism = sum(int((a != b).sum()) for a, b in zip(heads, heads_plain))
+        plain_err = max(float((a - b).abs().max())
+                        for a, b in zip(heads, heads_plain))
+        if mism:
+            raise AssertionError(f"int8 serving: heads with the kernel "
+                                 f"differ from the plain conv's in {mism} "
+                                 f"values (max {plain_err})")
+        # the JAX package's full-yolov3 gates (tests/test_quantize.py)
+        params, _ = load_darknet_weights(spec, wpath)
+        folded = {k: {n: t.to(device) for n, t in e.items()}
+                  for k, e in fold_batchnorm(spec, params).items()}
+        old = (torch.backends.cudnn.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            ref = make_forward(spec, bn_mode="fold")(folded, xf)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = old
+        rel = [float((a - b).abs().max() / (a.abs().max() + 1e-9))
+               for a, b in zip(ref, heads)]
+        got_d = decode_heads(heads, spec, 416)
+        ref_d = decode_heads(ref, spec, 416)
+        agree = float(((got_d[..., 4] > 0.6) == (ref_d[..., 4] > 0.6))
+                      .float().mean())
+    if not (max(rel) < 0.15 and agree > 0.9):
+        raise AssertionError(f"int8 serving drift: head error {rel}, "
+                             f"objectness agreement {agree}")
+    out = {"launches": launches, "launches_per_batch": launches / n_batches,
+           "convs_per_forward": len(plan),
+           "configurations": len(set(plan)),
+           "first_wall_s": first_wall_s, "wall_s": wall_s,
+           "wall_images_per_s": n_images / wall_s, "rows": n_rows,
+           "heads_vs_plain_mismatches": mism,
+           "head_rel_err_vs_fp32": rel, "objectness_agreement": agree}
+    out["program_ms_per_batch"] = cuda_ms(lambda: det.detect_batch(x))
+    out["program_images_per_s"] = batch / out["program_ms_per_batch"] * 1e3
+    out["program_profile"] = profile_program(lambda: det.detect_batch(x))
+    prof = out["program_profile"]
+    if prof:
+        out["conv_int8_share"] = prof["conv_int8_ms"] / prof["device_ms"]
+    out["host_stages"] = host_stages(det, imgs, names, x)
+    return out, plan
+
+
 def host_stages(det, folder: str, names, x) -> dict:
     """Each stage of the folder loop alone, one thread, warm page cache:
     JPEG decode and letterbox per image (the loader runs them on a pool of
@@ -434,12 +699,23 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 1
+    from realtimeobjectdetection_tpu_torch.ops.cuda import conv_int8
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
-    t0 = time.perf_counter()
-    nms_kernel.build()
-    print(f"build nms_kernel s {time.perf_counter() - t0:.3f}")
+    # every kernel library builds at once, one nvcc each
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed_build(mod):
+        t0 = time.perf_counter()
+        mod.build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(timed_build, mod) for name, mod in
+                  (("nms_kernel", nms_kernel), ("conv_int8", conv_int8))}
+        for name, fut in builds.items():
+            print(f"build {name} s {fut.result():.3f}")
 
     rows = kernel_phase(device)
     for r in rows:
@@ -451,10 +727,26 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as workdir:
         srv = serving_phase(device, workdir)
-    for key, val in srv.items():
-        print(f"serving {key} {val}")
+        for key, val in srv.items():
+            print(f"serving {key} {val}")
+        int8_srv, plan = int8_serving_phase(device, workdir)
+
+    int8_rows = int8_kernel_phase(device, plan)
+    print(f"int8kernel peaks int8_ops_per_s {H100_INT8_OPS:.4g} "
+          f"bytes_per_s {H100_BYTES_PER_S:.4g}")
+    for r in int8_rows:
+        print("int8kernel conv_flat_int8 " + json.dumps(r))
+    for key, val in int8_srv.items():
+        print(f"int8serving {key} {val}")
 
     max_err = max([r["mismatches"] for r in rows] + [srv["mismatches"]])
+    # K2 over one forward: each configuration's numbers times its calls
+    timed = [r for r in int8_rows if "ms" in r]
+    k2 = {key: sum(r[key] * r["calls_per_forward"] for r in timed)
+          for key in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms")}
+    by_ops = sum(r["bound_ms"] * r["calls_per_forward"] for r in timed
+                 if r["bound_by"] == "operations")
+    print(f"int8kernel per_forward {json.dumps(k2)}")
     print(json.dumps({"kernels": [{
         "name": "nms_suppress", "route": "cuda",
         "source": "realtimeobjectdetection_tpu_torch/csrc/nms_kernel.cu",
@@ -462,6 +754,16 @@ def main() -> int:
         "launches": srv["launches"], "max_abs_err": float(max_err),
         "ms": srv["nms_ms"], "plain_ms": srv["nms_plain_ms"],
         "bound_ms": srv["nms_bound_ms"], "bound_by": srv["nms_bound_by"],
+        "library_ms": None}, {
+        "name": "conv_flat_int8", "route": "cuda",
+        "source": "realtimeobjectdetection_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "realtimeobjectdetection_tpu/ops/pallas/conv_int8.py:206",
+        "launches": int8_srv["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": "operations" if by_ops >= k2["bound_ms"] / 2
+        else "bytes",
         "library_ms": None}]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -52,20 +52,22 @@ def load_library(name: str, sources: Sequence[str],
     with _lock:
         if out in _loaded:
             return _loaded[out]
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [*command, "-o", tmp, *paths]
-            try:
-                res = subprocess.run(cmd, capture_output=True, text=True,
-                                     timeout=600)
-            except (OSError, subprocess.TimeoutExpired) as e:
-                raise RuntimeError(f"building {name} failed: {e}") from e
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"building {name} failed ({' '.join(cmd)}):\n"
-                    f"{res.stdout}{res.stderr}")
-            os.replace(tmp, out)  # atomic: concurrent builds agree
-        lib = ctypes.CDLL(out)
-        _loaded[out] = lib
-        return lib
+    # compile outside the lock, so that libraries build in parallel threads
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+        cmd = [*command, "-o", tmp, *paths]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=600)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise RuntimeError(f"building {name} failed: {e}") from e
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"building {name} failed ({' '.join(cmd)}):\n"
+                f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)  # atomic: concurrent builds agree
+    with _lock:
+        if out not in _loaded:
+            _loaded[out] = ctypes.CDLL(out)
+        return _loaded[out]

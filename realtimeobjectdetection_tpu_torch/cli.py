@@ -90,6 +90,12 @@ def detect_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused_decode", action="store_true",
                    help="serving fast path: decode only the top_k "
                         "objectness rows (ops/decode.decode_topk)")
+    p.add_argument("--quantize", default=None,
+                   choices=["w8", "w8a8", "w8a8_pallas"],
+                   help="int8 inference (needs --bn_mode fold): w8 = "
+                        "int8 weights, w8a8 = int8 weights and "
+                        "activations, w8a8_pallas = the w8a8 tap-matmul "
+                        "kernel (ops/cuda/conv_int8)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions of "
                         "the kernels")
@@ -107,6 +113,7 @@ def detect_cli(argv=None):
         "batch_size": a.batch_size, "bn_mode": a.bn_mode,
         "precision": a.precision, "top_k": a.top_k,
         "fused_decode": a.fused_decode, "host_prep": a.host_prep,
+        "quantize": a.quantize,
     }
     return run_detect(params, device=a.device)
 

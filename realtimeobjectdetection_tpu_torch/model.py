@@ -17,6 +17,11 @@ BatchNorm modes
              (detect.py:62-63 runs the module in training mode), so the
              golden ``det/metrics.json`` was produced with batch stats.
 
+Int8 inference (``quantize=``) runs over the params of
+``ops.quantize.quantize_folded_int8``: ``"w8"`` and ``"w8a8"`` in the walk
+below, ``"w8a8_pallas"`` in :mod:`.model_int8` over the hand-written
+tap-matmul kernel.
+
 For fp32 parity on the card, turn TF32 off for cuDNN
 (``torch.backends.cudnn.allow_tf32 = False``), the counterpart of the JAX
 package's ``precision="highest"``.
@@ -31,8 +36,11 @@ import torch.nn.functional as F
 
 from .cfg_parser import (ConvSpec, GraphSpec, MaxPoolSpec, RouteSpec,
                          ShortcutSpec, UpsampleSpec, YoloSpec)
+from .ops.quantize import conv_w8, conv_w8a8
 
 __all__ = ["BN_EPS", "fold_batchnorm", "make_forward", "head_shapes"]
+
+QUANTIZE_MODES = ("w8", "w8a8", "w8a8_pallas")
 
 BN_EPS = 1e-5  # torch.nn.BatchNorm2d default (src/darknet.py:494)
 
@@ -121,6 +129,75 @@ def head_shapes(spec: GraphSpec, batch: int, height: Optional[int] = None,
     return shapes
 
 
+def _find_ladders(spec: GraphSpec) -> Dict[int, int]:
+    """Find residual ladders: maximal runs of identical
+    [conv 1x1 c->c/2, conv 3x3 c/2->c, shortcut] triples.
+
+    Returns {start_node_index: repetitions}.  The int8 forward
+    (:mod:`.model_int8`) fuses each ladder's shortcut into its 3x3 conv.
+    A ladder is only eligible if no route/shortcut outside it taps an
+    interior node (only the final output may be read).
+    """
+    nodes = spec.nodes
+    # (referrer, source) pairs so interior taps can be attributed
+    ref_pairs = []
+    for n in nodes:
+        if isinstance(n, RouteSpec):
+            ref_pairs.extend((n.index, s) for s in n.sources)
+        elif isinstance(n, ShortcutSpec):
+            ref_pairs.append((n.index, n.source))
+
+    def is_triple(i, proto=None):
+        if i + 2 >= len(nodes):
+            return False
+        a, b, c = nodes[i], nodes[i + 1], nodes[i + 2]
+        ok = (isinstance(a, ConvSpec) and isinstance(b, ConvSpec)
+              and isinstance(c, ShortcutSpec)
+              and c.source == i - 1
+              and a.kernel_size == 1 and b.kernel_size == 3
+              and a.stride == 1 and b.stride == 1
+              and a.batch_normalize and b.batch_normalize
+              and a.activation == "leaky" and b.activation == "leaky"
+              and b.out_channels == a.in_channels
+              and b.in_channels == a.out_channels)
+        if not ok:
+            return False
+        if proto is not None:
+            pa, _ = proto
+            ok = (a.in_channels == pa.in_channels
+                  and a.out_channels == pa.out_channels)
+        return ok
+
+    ladders: Dict[int, int] = {}
+    i = 0
+    while i < len(nodes):
+        if is_triple(i):
+            proto = (nodes[i], nodes[i + 1])
+            reps = 1
+            while is_triple(i + 3 * reps, proto):
+                reps += 1
+            # trim reps while any node interior to the region is
+            # referenced by anything other than the ladder's own shortcut
+            # nodes (a route into a mid-ladder output would need that
+            # intermediate activation)
+            while reps > 1:
+                interior = set(range(i, i + 3 * reps - 1))
+                own_shortcut_nodes = {i + 3 * t + 2 for t in range(reps)}
+                external = [
+                    (ref, src) for ref, src in ref_pairs
+                    if src in interior and ref not in own_shortcut_nodes]
+                if external:
+                    reps -= 1
+                else:
+                    break
+            if reps > 1:
+                ladders[i] = reps
+            i += 3 * reps
+        else:
+            i += 1
+    return ladders
+
+
 def make_forward(spec: GraphSpec, bn_mode: str = "fold",
                  compute_dtype=torch.float32, activation_dtype=None,
                  head_dtype=None, *, return_stats: bool = False,
@@ -136,18 +213,34 @@ def make_forward(spec: GraphSpec, bn_mode: str = "fold",
     statistics and the normalisation stay fp32 and only the
     post-activation tensor is cast, as in the JAX package.
 
-    ``return_stats``, ``scan_ladders``, ``s2d_stem``, ``stage_range`` and
-    ``quantize`` belong to slices not ported yet (ROADMAP.md) and raise.
+    ``quantize``: ``"w8"`` or ``"w8a8"`` int8 inference over params
+    produced by :func:`.ops.quantize.quantize_folded_int8` (requires
+    ``bn_mode="fold"``), in this walk; ``"w8a8_pallas"`` returns
+    :func:`.model_int8.make_forward_int8` instead, whose flat activations
+    are ``activation_dtype``, bf16 when it is None (whatever
+    ``compute_dtype`` says, as in the JAX package).
+
+    ``return_stats``, ``scan_ladders``, ``s2d_stem`` and ``stage_range``
+    belong to slices not ported yet (ROADMAP.md) and raise.
     """
     if bn_mode not in ("fold", "running", "batch"):
         raise ValueError(f"unknown bn_mode {bn_mode!r}")
+    if quantize is not None and quantize not in QUANTIZE_MODES:
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    if quantize and bn_mode != "fold":
+        raise ValueError("int8 paths consume BN-folded params: quantize "
+                         "requires bn_mode='fold'")
     unported = {"return_stats": return_stats, "scan_ladders": scan_ladders,
-                "s2d_stem": s2d_stem, "stage_range": stage_range,
-                "quantize": quantize}
+                "s2d_stem": s2d_stem, "stage_range": stage_range}
     asked = sorted(k for k, v in unported.items() if v)
     if asked:
         raise NotImplementedError(
             f"make_forward options {asked} are not ported (ROADMAP.md)")
+    if quantize == "w8a8_pallas":
+        from .model_int8 import make_forward_int8
+        return make_forward_int8(
+            spec, compute_dtype=activation_dtype or torch.bfloat16,
+            head_dtype=head_dtype)
     act_dtype = activation_dtype or torch.float32
     head_dtype = head_dtype or torch.float32
     live = spec.live_after()
@@ -160,14 +253,21 @@ def make_forward(spec: GraphSpec, bn_mode: str = "fold",
             i = node.index
             if isinstance(node, ConvSpec):
                 entry = params[f"node_{i}"]
-                # batch/running BN keeps the conv output fp32 so the
-                # statistics and the normalisation stay fp32; fold and
-                # no-BN convs materialise act_dtype directly
-                conv_dt = act_dtype if (bn_mode == "fold"
-                                        or not node.batch_normalize) \
-                    else torch.float32
-                y = _conv(prev, entry["w"], node.stride, node.pad,
-                          compute_dtype, conv_dt)
+                if quantize == "w8":
+                    y = conv_w8(prev, entry["w_q"], entry["scale"],
+                                node.stride, node.pad, compute_dtype)
+                elif quantize == "w8a8":
+                    y = conv_w8a8(prev, entry["w_q"], entry["scale"],
+                                  node.stride, node.pad)
+                else:
+                    # batch/running BN keeps the conv output fp32 so the
+                    # statistics and the normalisation stay fp32; fold
+                    # and no-BN convs materialise act_dtype directly
+                    conv_dt = act_dtype if (bn_mode == "fold"
+                                            or not node.batch_normalize) \
+                        else torch.float32
+                    y = _conv(prev, entry["w"], node.stride, node.pad,
+                              compute_dtype, conv_dt)
                 if node.batch_normalize and bn_mode != "fold":
                     if bn_mode == "batch":
                         y = _batch_stats_bn(y, entry["bn_gamma"],

@@ -39,11 +39,12 @@ import torch
 
 from ..data.classnames import COCO80, load_classes
 from ..device import resolve_device
-from ..model import fold_batchnorm, make_forward
+from ..model import QUANTIZE_MODES, fold_batchnorm, make_forward
 from ..models.zoo import resolve_spec
 from ..ops.decode import decode_heads, decode_topk
 from ..ops.letterbox import prep_image_host_u8
 from ..ops.nms import nms_batch
+from ..ops.quantize import quantize_folded_int8
 from ..weights import (init_params, load_darknet_weights,
                        params_from_torch_state_dict)
 from .render import draw_detection, make_palette
@@ -65,7 +66,11 @@ class DetectorV3:
     JAX package's reduced-precision passes), None leaves the process's
     setting.  The port has no ``use_pallas_nms``: the suppression follows
     the device (the CUDA kernel on the card, its plain version on the
-    CPU).  ``scan_ladders``, ``quantize``, ``mesh``, ``pipeline_stages``
+    CPU).  ``quantize`` (``"w8"``, ``"w8a8"`` or ``"w8a8_pallas"``, with
+    ``bn_mode="fold"``) folds BN and then quantizes the kernels to int8
+    (``ops.quantize``); ``"w8a8_pallas"`` runs the tap-matmul kernel,
+    with bf16 activations unless ``activation_dtype`` says otherwise, as
+    in the JAX package.  ``scan_ladders``, ``mesh``, ``pipeline_stages``
     and checkpoint directories are not ported and raise.
     """
 
@@ -89,12 +94,16 @@ class DetectorV3:
                  host_prep: str = "cv2",
                  activation_dtype=None,
                  device="cuda"):
-        unported = {"scan_ladders": scan_ladders, "quantize": quantize,
-                    "mesh": mesh, "pipeline_stages": pipeline_stages}
+        unported = {"scan_ladders": scan_ladders, "mesh": mesh,
+                    "pipeline_stages": pipeline_stages}
         asked = sorted(k for k, v in unported.items() if v)
         if asked:
             raise NotImplementedError(
                 f"DetectorV3 options {asked} are not ported (ROADMAP.md)")
+        if quantize is not None and quantize not in QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if quantize and bn_mode != "fold":
+            raise ValueError("quantize requires bn_mode='fold'")
         if resolution % 32 != 0 or resolution <= 32:  # detect.py:51-52
             raise ValueError(f"resolution must be a multiple of 32 above 32,"
                              f" got {resolution}")
@@ -144,8 +153,15 @@ class DetectorV3:
         self.spec = resolve_spec(cfg_path)
         self.bn_mode = bn_mode
         params = self._load_params(weights_path, use_torch_weights)
-        if bn_mode == "fold":
+        if quantize:
+            # int8 inference (ops/quantize.py): fold first, then quantize
+            params = quantize_folded_int8(
+                self.spec, fold_batchnorm(self.spec, params))
+        elif bn_mode == "fold":
             params = fold_batchnorm(self.spec, params)
+        self.quantize = quantize
+        # only float kernels take the compute dtype: int8 kernels, their
+        # scales and the biases keep theirs
         self.params = {
             key: {name: (t.to(self.device, compute_dtype) if name == "w"
                          else t.to(self.device))
@@ -154,7 +170,8 @@ class DetectorV3:
         self._forward = make_forward(self.spec, bn_mode=bn_mode,
                                      compute_dtype=compute_dtype,
                                      activation_dtype=activation_dtype,
-                                     head_dtype=activation_dtype)
+                                     head_dtype=activation_dtype,
+                                     quantize=quantize)
 
     # ------------------------------------------------------------------
     def _load_params(self, weights_path, use_torch_weights):

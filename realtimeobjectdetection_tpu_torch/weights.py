@@ -182,12 +182,18 @@ def params_from_torch_state_dict(spec: GraphSpec, state_dict) -> Params:
 
 def params_from_jax(params_np) -> Params:
     """The JAX package's parameter tree (numpy arrays, HWIO kernels) ->
-    the port's params (OIHW tensors).  Non-kernel entries copy as they
-    are."""
+    the port's params (OIHW tensors).  Float kernels ``"w"`` become fp32
+    OIHW, int8 kernels ``"w_q"`` of a quantized tree int8 OIHW; the other
+    entries copy as fp32."""
     out: Params = {}
     for key, entry in params_np.items():
-        out[key] = {
-            name: _tensor(np.asarray(v).transpose(3, 2, 0, 1) if name == "w"
-                          else v)
-            for name, v in entry.items()}
+        out[key] = {}
+        for name, v in entry.items():
+            if name == "w_q":
+                out[key][name] = torch.from_numpy(np.ascontiguousarray(
+                    np.asarray(v, np.int8).transpose(3, 2, 0, 1)))
+            else:
+                out[key][name] = _tensor(
+                    np.asarray(v).transpose(3, 2, 0, 1) if name == "w"
+                    else v)
     return out

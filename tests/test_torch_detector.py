@@ -33,7 +33,9 @@ from realtimeobjectdetection_tpu_torch import native as tnative
 from realtimeobjectdetection_tpu_torch.models import get_spec
 from realtimeobjectdetection_tpu_torch.ops import letterbox as tlb
 from realtimeobjectdetection_tpu_torch.pipeline.detector import DetectorV3
-from realtimeobjectdetection_tpu_torch.testing import synthetic_darknet_weights
+from realtimeobjectdetection_tpu_torch.testing import (bench_params,
+                                                       synthetic_darknet_weights)
+from realtimeobjectdetection_tpu_torch.weights import export_darknet_weights
 
 SIZES = [(480, 640), (600, 400), (416, 416), (123, 457)]
 
@@ -74,11 +76,13 @@ def coco(tmp_path_factory):
     return img_dir, str(wpath), root
 
 
-def _match_rows(g, w):
-    """``w`` reordered to pair each row of ``g`` with the row of the same
-    class and the nearest corners (a one-to-one match)."""
+def _match_rows(g, w, same_class=True):
+    """``w`` reordered to pair each row of ``g`` with the row of the
+    nearest corners (and the same class, unless ``same_class`` is False):
+    a one-to-one match."""
     dist = np.abs(g[:, None, 1:5] - w[None, :, 1:5]).max(-1)
-    dist[g[:, None, 7] != w[None, :, 7]] = np.inf
+    if same_class:
+        dist[g[:, None, 7] != w[None, :, 7]] = np.inf
     pick = dist.argmin(1)
     assert len(set(pick.tolist())) == len(pick)
     return w[pick]
@@ -149,10 +153,19 @@ def test_detector_rejects_unported_options(coco, tmp_path):
     img_dir, wpath, root = coco
     kw = dict(images=img_dir, destination=str(tmp_path),
               cfg_path="yolov3-tiny", weights_path=wpath, device="cpu")
-    for extra in ({"quantize": "w8a8_pallas"}, {"pipeline_stages": 2},
-                  {"mesh": True}, {"scan_ladders": True}):
+    for extra in ({"pipeline_stages": 2}, {"mesh": True},
+                  {"scan_ladders": True}):
         with pytest.raises(NotImplementedError):
             DetectorV3(**kw, **extra)
+    # int8 needs folded BN, as in the JAX package; an unknown mode fails
+    jkw = {k: v for k, v in kw.items() if k != "device"}
+    for bn_mode in ("batch", "running"):
+        with pytest.raises(ValueError, match="fold"):
+            DetectorV3(**kw, quantize="w8a8_pallas", bn_mode=bn_mode)
+        with pytest.raises(ValueError, match="fold"):
+            JDetectorV3(**jkw, quantize="w8", bn_mode=bn_mode)
+    with pytest.raises(ValueError):
+        DetectorV3(**kw, quantize="int4", bn_mode="fold")
     with pytest.raises(NotImplementedError):
         DetectorV3(**dict(kw, weights_path=str(root)))
     with pytest.raises(ValueError):
@@ -161,6 +174,84 @@ def test_detector_rejects_unported_options(coco, tmp_path):
         DetectorV3(**kw, use_pallas_nms=True)
     with pytest.raises(ValueError):
         DetectorV3(**kw, precision="medium")
+
+
+@pytest.fixture(scope="module")
+def bench_weights(coco):
+    """yolov3-tiny with the benchmark weights: with folded BN the
+    synthetic weights saturate every image (over 1500 candidates past
+    confidence 0.6, so the top-k cut decides the rows), these give 17
+    rows an image at confidence 0.7."""
+    _, _, root = coco
+    spec = get_spec("yolov3-tiny")
+    wpath = root / "tiny_bench.weights"
+    wpath.write_bytes(export_darknet_weights(
+        spec, bench_params(spec, "yolov3-tiny")))
+    return str(wpath)
+
+
+@pytest.mark.parametrize("quantize", ["w8", "w8a8", "w8a8_pallas"])
+def test_int8_detector_matches_jax(coco, bench_weights, tmp_path,
+                                   monkeypatch, quantize):
+    """``quantize`` in both detectors (folded BN; for w8a8_pallas JAX's
+    conv is ``conv_flat_int8_reference`` and both run bf16 activations).
+
+    w8 keeps fp32 activations: rows as ``_compare_metrics`` compares
+    them.  With int8 activations a last-bit difference can flip an int8
+    rounding, and the flips cascade (tests/test_torch_quantize.py): the
+    same boxes, in an order that may differ, corners within 0.01 px and
+    scores within 0.02 (0.0041 px and 0.0088 seen).  The benchmark
+    weights give every class a confidence within 0.001 of 0.5, so the
+    arg-max class of a box can flip too: classes agree on at least 90% of
+    the rows (all but one of 51 seen).  Run with ``-s``, the test prints
+    these differences."""
+    from realtimeobjectdetection_tpu import model_int8 as jmodel_int8
+    from realtimeobjectdetection_tpu.ops.pallas import conv_int8 as jconv
+    img_dir, _, _ = coco
+
+    def reference(*args, interpret=False, **kw):
+        return jconv.conv_flat_int8_reference(*args, **kw)
+
+    monkeypatch.setattr(jmodel_int8, "conv_flat_int8", reference)
+    kw = dict(images=img_dir, cfg_path="yolov3-tiny",
+              weights_path=bench_weights, resolution=416, confidence=0.7,
+              nms_thresh=0.5, top_k=512, bn_mode="fold", quantize=quantize)
+    want = JDetectorV3(destination=str(tmp_path / "jax"),
+                       precision="highest", **kw)(verbose=False)
+    if quantize == "w8":
+        # through the CLI: --quantize reaches the detector
+        from realtimeobjectdetection_tpu_torch import cli
+        cli.main(["detect", "--images", img_dir, "--det",
+                  str(tmp_path / "torch"), "--cfg", "yolov3-tiny",
+                  "--weights", bench_weights, "--confidence", "0.7",
+                  "--top_k", "512", "--bn_mode", "fold", "--quantize",
+                  "w8", "--device", "cpu"])
+        got = json.load(open(tmp_path / "torch" / "metrics.json"))
+        _compare_metrics(got, want)
+        return
+    det = DetectorV3(destination=str(tmp_path / "torch"), device="cpu",
+                     **kw)
+    assert det.params["node_0"]["w_q"].dtype == torch.int8
+    got = det(verbose=False)
+    assert set(got) == set(want)
+    pairs = []
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.shape == w.shape and g.shape[0] > 0, k
+        pairs.append((g, _match_rows(g, w, same_class=False)))
+    n_rows = sum(g.shape[0] for g, _ in pairs)
+    n_same = sum(int((g[:, 7] == w[:, 7]).sum()) for g, w in pairs)
+    # shown with -s
+    print(f"\n{quantize}: {n_rows} rows, corners at most "
+          f"{max(np.abs(g[:, 1:5] - w[:, 1:5]).max() for g, w in pairs):.3g}"
+          f" px, scores at most "
+          f"{max(np.abs(g[:, 5:7] - w[:, 5:7]).max() for g, w in pairs):.3g}"
+          f", {n_rows - n_same} class flips")
+    for g, w in pairs:
+        np.testing.assert_array_equal(g[:, 0], w[:, 0])
+        np.testing.assert_allclose(g[:, 1:5], w[:, 1:5], atol=0.01)
+        np.testing.assert_allclose(g[:, 5:7], w[:, 5:7], atol=0.02)
+    assert n_same >= 0.9 * n_rows
 
 
 def test_detector_precision_sets_tf32(coco, tmp_path):

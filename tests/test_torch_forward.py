@@ -88,12 +88,19 @@ def test_tiny_bf16_heads_match_jax(tiny):
 def test_make_forward_rejects_unported_options():
     spec = tzoo.get_spec("yolov3-tiny")
     for kw in ({"scan_ladders": True}, {"s2d_stem": True},
-               {"stage_range": (0, 4)}, {"quantize": "w8a8_pallas"},
-               {"return_stats": True}):
+               {"stage_range": (0, 4)}, {"return_stats": True}):
         with pytest.raises(NotImplementedError):
             tmodel.make_forward(spec, **kw)
     with pytest.raises(ValueError):
         tmodel.make_forward(spec, bn_mode="batch1p")
+    # int8 needs folded BN (an assert in the JAX package); an unknown
+    # mode fails
+    for bn_mode in ("batch", "running"):
+        with pytest.raises(ValueError, match="fold"):
+            tmodel.make_forward(spec, bn_mode=bn_mode,
+                                quantize="w8a8_pallas")
+    with pytest.raises(ValueError):
+        tmodel.make_forward(spec, quantize="int4")
 
 
 @pytest.mark.parametrize("name", ["yolov3-tiny", "yolov3"])
