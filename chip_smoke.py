@@ -22,10 +22,15 @@ main path (YOLOv3 folder detection through ``DetectorV3``) at full width:
    device program's time per batch;
 4. int8 kernel phase: the w8a8 tap-matmul conv kernel against its plain
    version in each configuration the int8 yolov3 forward runs at 416x416,
-   batch 16 (bf16 in and out; fp32 out for two; inputs on the rounding
-   tie, all-zero blocks), bit for bit; per configuration the kernel's and
-   the plain version's times, the bound, and a bf16 cuDNN conv of the same
-   shape for context;
+   batch 16 (bf16 in and out; bf16 in and fp32 out for two, fp32 in and
+   out for one; a small layout, batch 2 at 13x13 with tm 256; inputs on
+   the rounding tie, all-zero blocks), bit for bit; per configuration the
+   kernel's device time (CUDA-graph replay of back-to-back calls), the time
+   of back-to-back calls from Python (host dispatch included), the host's
+   time to issue one call, the plain version's time, the bound, the
+   achieved int8 TOP/s, the share of the bound, the device time of each
+   of the kernel's three passes (torch.profiler), and a bf16 cuDNN conv of
+   the same shape for context, timed the same three ways;
 5. int8 serving phase: ``DetectorV3(quantize="w8a8_pallas")`` over the
    same folder and weights; the kernel's launches per batch, the program's
    time per batch, the kernel's share of the device time, the warm folder
@@ -57,6 +62,75 @@ H100_F32_FLOPS = 67e12       # fp32 outside the tensor cores
 H100_INT8_OPS = 1979e12      # dense int8 tensor cores, NVIDIA data sheet
 NMS_FLOPS_PER_PAIR = 14      # IoU of one same-class pair and its compare
 NMS_FLOPS_PER_BOX = 5        # one box area
+
+
+def graph_ms(fn, calls: int = 10, iters: int = 5) -> float:
+    """Device time of one ``fn`` call in ms: ``calls`` calls captured in a
+    CUDA graph, replayed ``iters`` times between CUDA events, so the host's
+    dispatch does not gap the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # allocations and lazy set-up first
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, iters=iters, warmup=2) / calls
+    del graph
+    return ms
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time of one ``fn`` call in ms: the wall time of issuing
+    ``iters`` calls back to back, with the card synchronised before and
+    after, outside the timed span (the card runs behind the host)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / iters
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, spills and static shared memory of each kernel from the
+    ``-Xptxas -v`` lines of a build log."""
+    import re
+    short = {"I13__nv_bfloat16S1_E": "<bf16,bf16>",
+             "I13__nv_bfloat16fE": "<bf16,f32>", "IffE": "<f32,f32>",
+             "I13__nv_bfloat16E": "<bf16>", "IfE": "<f32>"}
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            base = re.search(r"(conv_int8_kernel|conv_int8_quantize_kernel|"
+                             r"chunk_absmax_kernel|nms\w*kernel)(I\w+?E)?",
+                             name)
+            if base:
+                name = base.group(1) + short.get(base.group(2) or "", "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -417,15 +491,18 @@ def int8_bound_ms(lay, k, cin, cout, skip, in_bytes, out_bytes):
         "bytes" if bytes_s >= ops_s else "operations"
 
 
-def int8_inputs(lay, k, cin, cout, skip, seed, device, kind="random"):
-    """Seeded inputs of one conv at ``lay``: bf16 activations in the flat
-    layout, packed int8 weights, scales, bias and a bf16 skip.  ``kind``
+def int8_inputs(lay, k, cin, cout, skip, seed, device, kind="random",
+                dtype=None):
+    """Seeded inputs of one conv at ``lay``: activations of ``dtype`` (bf16
+    by default) in the flat layout, packed int8 weights, scales, bias and a
+    skip of the same type.  ``kind``
     "halves" puts every scaled value on a rounding tie (amax 127, values
     n + 0.5); "zero_blocks" zeroes the first two images, so whole row
     blocks and their halos hold only zeros."""
     import torch
     from realtimeobjectdetection_tpu_torch.ops.conv_int8 import (
         pack_conv_int8, to_flat)
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device="cpu").manual_seed(seed)
     shape = (lay.b, lay.h, lay.w, cin)
     if kind == "halves":
@@ -435,7 +512,7 @@ def int8_inputs(lay, k, cin, cout, skip, seed, device, kind="random"):
         x = torch.randn(shape, generator=g) * 2.0
         if kind == "zero_blocks":
             x[:2] = 0.0
-    x_flat = to_flat(x.to(device, torch.bfloat16), lay)
+    x_flat = to_flat(x.to(device, dtype), lay)
     w = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
                       dtype=torch.int8)
     s_w = (torch.rand(cout, generator=g) + 0.5) / 127 / (k * k * cin) ** 0.5
@@ -443,56 +520,85 @@ def int8_inputs(lay, k, cin, cout, skip, seed, device, kind="random"):
     sk = None
     if skip:
         sk = to_flat(torch.randn((lay.b, lay.h, lay.w, cout), generator=g)
-                     .to(device, torch.bfloat16), lay)
+                     .to(device, dtype), lay)
     return (x_flat, pack_conv_int8(w).to(device), s_w.to(device),
             bias.to(device), sk)
 
 
 def int8_kernel_phase(device, plan) -> list:
     """K2 against its plain version in each configuration of ``plan``,
-    bf16 in and out, with its time, the plain version's, the bound and a
-    bf16 cuDNN conv of the same shape (context: not the same function);
-    then fp32 out for two configurations and the edge cases."""
+    bf16 in and out, with its device time, the time of back-to-back calls,
+    the host's time per call, its three passes' device times, the plain
+    version's time, the bound, the achieved int8 TOP/s and a bf16 cuDNN
+    conv of the same shape timed the same three ways (context: not the
+    same function);
+    then bf16 in and fp32 out for two configurations, fp32 in and out for
+    one, a small layout and the edge cases."""
     import torch
     import torch.nn.functional as F
-    from realtimeobjectdetection_tpu_torch.ops.conv_int8 import \
-        conv_flat_int8_plain
-    from realtimeobjectdetection_tpu_torch.ops.cuda.conv_int8 import \
-        conv_flat_int8
+    from realtimeobjectdetection_tpu_torch.ops.conv_int8 import (
+        conv_flat_int8_plain, make_layout)
+    from realtimeobjectdetection_tpu_torch.ops.cuda.conv_int8 import (
+        conv_flat_int8, plan as k2_plan)
 
+    bf16, f32 = torch.bfloat16, torch.float32
     configs = sorted(set(plan), key=lambda c: (-c[0].h, c[1], c[2], c[3],
                                                c[4], c[5]))
-    cases = [(c, torch.bfloat16, "random", True) for c in configs]
+    cases = [(c, bf16, bf16, "random", True) for c in configs]
     fp32 = [c for c in configs if c[1] == 3 and c[5]][:1] \
         + [c for c in configs if c[3] == 255][:1]
-    cases += [(c, torch.float32, "random", False) for c in fp32]
+    cases += [(c, bf16, f32, "random", False) for c in fp32]
+    cases += [(fp32[0], f32, f32, "random", False)]
+    small = make_layout(2, 13, 13, tm=256)
+    cases += [((small, 3, 64, 64, "leaky", True), bf16, bf16, "random",
+               False),
+              ((small, 1, 96, 255, "linear", False), f32, f32, "random",
+               False)]
     # edge cases at the two largest resolutions, where blocks are many
     res = sorted({c[0].h for c in configs}, reverse=True)
     edge = [c for c in configs if c[0].h == res[0]][:2] \
         + [c for c in configs if c[0].h == res[1] and c[1] == 3][:1]
-    cases += [(c, torch.bfloat16, kind, False) for c in edge
+    cases += [(c, bf16, bf16, kind, False) for c in edge
               for kind in ("halves", "zero_blocks")]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows = []
-    for n, ((lay, k, cin, cout, act, skip), out_dtype, kind, timed) \
-            in enumerate(cases):
+    for n, ((lay, k, cin, cout, act, skip), x_dtype, out_dtype, kind,
+            timed) in enumerate(cases):
         x_flat, w, s_w, bias, sk = int8_inputs(lay, k, cin, cout, skip, n,
-                                               device, kind)
+                                               device, kind, x_dtype)
         args = (x_flat, w, s_w, bias, lay)
         kw = dict(k=k, act=act, skip=sk, out_dtype=out_dtype)
         got = conv_flat_int8(*args, **kw)
         want = conv_flat_int8_plain(*args, **kw)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
-        row = {"h": lay.h, "tm": lay.tm, "nb": lay.nb, "k": k, "cin": cin,
-               "cout": cout, "act": act, "skip": skip, "kind": kind,
+        pl = k2_plan(lay, k, cin, cout, sms, x_flat.element_size(),
+                     got.element_size())
+        row = {"h": lay.h, "b": lay.b, "tm": lay.tm, "nb": lay.nb, "k": k,
+               "cin": cin, "cout": cout, "act": act, "skip": skip,
+               "kind": kind, "x": str(x_dtype).replace("torch.", ""),
                "out": str(out_dtype).replace("torch.", ""),
+               "bk": pl.bk, "stages": pl.stages, "splits": pl.splits,
                "mismatches": int((got.float() != want.float()).sum()),
                "max_abs_err": float(diff.max()),
                "finite": bool(torch.isfinite(got.float()).all())}
         if row["mismatches"] or not row["finite"]:
             raise AssertionError(f"conv_flat_int8 against plain: {row}")
         if timed:
-            row["ms"] = cuda_ms(lambda: conv_flat_int8(*args, **kw))
+            row["ms"] = graph_ms(lambda: conv_flat_int8(*args, **kw))
+            row["call_ms"] = cuda_ms(lambda: conv_flat_int8(*args, **kw))
+            row["host_ms"] = host_ms(lambda: conv_flat_int8(*args, **kw))
+            # the device time of K2's three kernels, one call
+            for _ in range(3):  # the profiler now and then records none
+                top = profile_program(lambda: conv_flat_int8(*args, **kw),
+                                      iters=10).get("top", [])
+                if top:
+                    break
+            row["kernel_ms"] = {
+                part: sum(v for name, v in top if key in name)
+                for part, key in (("chunk_absmax", "chunk_absmax"),
+                                  ("quantize", "conv_int8_quantize"),
+                                  ("conv", "conv_int8_kernel"))}
             row["plain_ms"] = cuda_ms(lambda: conv_flat_int8_plain(
                 *args, **kw), iters=3, warmup=1)
             xc = torch.randn((lay.b, cin, lay.h, lay.w), device=device,
@@ -501,10 +607,19 @@ def int8_kernel_phase(device, plan) -> list:
             wc = torch.randn((cout, cin, k, k), device=device,
                              dtype=torch.bfloat16).to(
                 memory_format=torch.channels_last)
-            row["cudnn_bf16_ms"] = cuda_ms(lambda: F.conv2d(
-                xc, wc, padding=(k - 1) // 2))
+            def cudnn():
+                return F.conv2d(xc, wc, padding=(k - 1) // 2)
+            row["cudnn_bf16_ms"] = graph_ms(cudnn)
+            row["cudnn_call_ms"] = cuda_ms(cudnn)
+            row["cudnn_host_ms"] = host_ms(cudnn)
             row["bound_ms"], row["bound_by"] = int8_bound_ms(
                 lay, k, cin, cout, skip, 2, 2)
+            ops = 2 * lay.b * lay.h * lay.w * k * k * cin * cout
+            row["tops"] = ops / (row["ms"] * 1e-3) / 1e12
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["ratio_to_cudnn"] = row["ms"] / row["cudnn_bf16_ms"]
+            row["call_ratio_to_cudnn"] = (row["call_ms"]
+                                          / row["cudnn_call_ms"])
             row["calls_per_forward"] = plan.count(
                 (lay, k, cin, cout, act, skip))
         rows.append(row)
@@ -716,6 +831,13 @@ def main() -> int:
                   (("nms_kernel", nms_kernel), ("conv_int8", conv_int8))}
         for name, fut in builds.items():
             print(f"build {name} s {fut.result():.3f}")
+    # K2's registers, spills and shared memory (dynamic: the conv kernel's
+    # for bf16 -> bf16, bf16 -> fp32, fp32 -> fp32)
+    from realtimeobjectdetection_tpu_torch.buildlib import build_log
+    print("build conv_int8 ptxas " + json.dumps({
+        "kernels": ptxas_report(build_log(conv_int8.build())),
+        "dynamic_smem": [conv_int8.smem_bytes(*t)
+                         for t in ((2, 2), (2, 4), (4, 4))]}))
 
     rows = kernel_phase(device)
     for r in rows:
@@ -743,7 +865,11 @@ def main() -> int:
     # K2 over one forward: each configuration's numbers times its calls
     timed = [r for r in int8_rows if "ms" in r]
     k2 = {key: sum(r[key] * r["calls_per_forward"] for r in timed)
-          for key in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms")}
+          for key in ("ms", "call_ms", "host_ms", "plain_ms", "bound_ms",
+                      "cudnn_bf16_ms", "cudnn_call_ms", "cudnn_host_ms")}
+    k2["ratio_to_cudnn"] = k2["ms"] / k2["cudnn_bf16_ms"]
+    k2["call_ratio_to_cudnn"] = k2["call_ms"] / k2["cudnn_call_ms"]
+    k2["bound_share"] = k2["bound_ms"] / k2["ms"]
     by_ops = sum(r["bound_ms"] * r["calls_per_forward"] for r in timed
                  if r["bound_by"] == "operations")
     print(f"int8kernel per_forward {json.dumps(k2)}")

@@ -16,7 +16,8 @@ import subprocess
 import threading
 from typing import Dict, Sequence
 
-__all__ = ["BUILD_DIR", "load_library", "nvcc_command", "gxx_command"]
+__all__ = ["BUILD_DIR", "load_library", "build_log", "nvcc_command",
+           "gxx_command"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -66,8 +67,20 @@ def load_library(name: str, sources: Sequence[str],
             raise RuntimeError(
                 f"building {name} failed ({' '.join(cmd)}):\n"
                 f"{res.stdout}{res.stderr}")
+        with open(f"{tmp}.log", "w") as f:
+            f.write(res.stdout + res.stderr)
+        os.replace(f"{tmp}.log", f"{out}.log")
         os.replace(tmp, out)  # atomic: concurrent builds agree
     with _lock:
         if out not in _loaded:
             _loaded[out] = ctypes.CDLL(out)
         return _loaded[out]
+
+
+def build_log(lib: ctypes.CDLL) -> str:
+    """What the compiler printed while building ``lib`` ("" if unknown)."""
+    try:
+        with open(f"{lib._name}.log") as f:
+            return f.read()
+    except OSError:
+        return ""

@@ -37,7 +37,7 @@ import torch
 
 __all__ = ["FlatLayout", "make_layout", "to_flat", "from_flat",
            "pack_conv_int8", "content_mask", "quantize_blocks",
-           "conv_flat_int8_plain"]
+           "quantize_once_plain", "conv_flat_int8_plain"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -163,6 +163,18 @@ def quantize_blocks(xin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     q = torch.clamp(torch.round(xf * (_c127(amax) / amax)[:, None, None]),
                     -127, 127)
     return q.to(torch.int8), amax
+
+
+def quantize_once_plain(x_flat: torch.Tensor, lay: FlatLayout, k: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The quantized activations ``Q`` the kernel reads, in plain PyTorch:
+    ``(q [nb - 2, tm + 2h, C_in] int8, amax [nb - 2] f32)``, one window
+    per content block i = 1 .. nb-2 of input rows
+    ``[i*tm - h, (i+1)*tm + h)`` (h = gr for k = 3, 0 for k = 1) at that
+    block's scale.  A content block's halos lie inside the array, so these
+    are the content blocks of :func:`_halo_rows`; the guard blocks' output
+    is 0 and needs no window."""
+    return quantize_blocks(x_flat[_halo_rows(lay, k, x_flat.device)[1:-1]])
 
 
 def conv_flat_int8_plain(x_flat: torch.Tensor, w_packed: torch.Tensor,
